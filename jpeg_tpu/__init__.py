@@ -1,10 +1,11 @@
-"""tpu-jpeg: a TPU-native JPEG encode/decode engine (JAX/XLA/Pallas).
+"""jpeg_tpu: a JPEG encode/decode engine for accelerators, in JAX/XLA.
 
 Built from scratch against the capability contract of the reference C project
 matthewT53/JPEG-Encoder-and-Decoder (see SURVEY.md): baseline JFIF encode with
 quality scaling and 4:4:4/4:2:2/4:2:0 chroma subsampling, plus the decoder the
-reference never wrote — with the transform pipeline running as fused XLA/Pallas
-programs and entropy coding restructured for parallelism.
+reference never wrote — with the transform pipeline running as fused XLA
+programs on the device (an NVIDIA GPU) and entropy coding restructured for
+parallelism.
 """
 
 from jpeg_tpu.config import EncodeConfig, Subsampling  # noqa: F401

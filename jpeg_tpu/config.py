@@ -1,4 +1,4 @@
-"""Configuration for the TPU JPEG engine.
+"""Configuration for the JPEG engine.
 
 Replaces the reference's positional-argument + compile-time-constant configuration
 (`src/headers/jpg_encode.h:85`, constants at `jpg_encode.h:13-15`; see SURVEY.md §5

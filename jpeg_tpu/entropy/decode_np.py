@@ -5,7 +5,7 @@ empty shell — SURVEY.md component 16). Huffman decode is inherently serial
 within a restart segment (codes are self-delimiting, not self-synchronizing),
 so this reference implementation walks bits with a 16-bit-window lookup table;
 segments between RSTn markers are independent and are decoded separately (the
-C++ runtime decodes them on worker threads, the TPU path in parallel).
+C++ runtime decodes them on worker threads, the device path in parallel).
 """
 
 from __future__ import annotations

@@ -31,14 +31,20 @@ def _build() -> bool:
     src = _NATIVE_DIR / "entropy.cc"
     if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= src.stat().st_mtime:
         return True
+    # Build to a per-process name and rename into place: concurrent first
+    # uses (test workers, a fresh checkout) must never load a half-written
+    # library.
+    tmp = _BUILD_DIR / f"{_LIB_PATH.name}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        str(src), "-o", str(_LIB_PATH),
+        str(src), "-o", str(tmp),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
         return True
     except (subprocess.SubprocessError, FileNotFoundError):
+        tmp.unlink(missing_ok=True)
         return False
 
 

@@ -1,6 +1,6 @@
 """BMP reader/writer (host side, NumPy).
 
-TPU-native replacement for the reference's `src/bitmap.c` (SURVEY.md component
+Replacement for the reference's `src/bitmap.c` (SURVEY.md component
 1): one pass over an in-memory buffer into an (H, W, 3) uint8 RGB array instead
 of a double file read into per-channel pointer arrays. Fixes the reference's
 known gaps (README.md:18-19): 4-byte row padding is handled, top-down bitmaps

@@ -41,8 +41,8 @@ def inverse_permutation(mcu_rows: int, mcu_cols: int, v: int, h: int) -> np.ndar
 def scan_to_raster(blocks, mcu_rows: int, mcu_cols: int, v: int, h: int):
     """Scan-order (mcu_rows*mcu_cols*v*h, ...) component blocks -> plane
     raster block order, as a reshape+transpose (works on NumPy and JAX arrays
-    alike; equals blocks[inverse_permutation(...)] without the gather — TPU
-    row gathers cost real HBM time, a transpose is pure layout)."""
+    alike; equals blocks[inverse_permutation(...)] without the gather — row
+    gathers cost real memory traffic, a transpose is pure layout)."""
     lead = blocks.shape[1:]
     x = blocks.reshape(mcu_rows, mcu_cols, v, h, *lead)
     x = x.transpose(0, 2, 1, 3, *range(4, 4 + len(lead)))

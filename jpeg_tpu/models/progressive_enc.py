@@ -1,8 +1,8 @@
 """Progressive (SOF2) JPEG *encoding*: spectral selection + successive
 approximation, the writer side of entropy/progressive_np.py's reader.
 
-The one capability class libjpeg has that round 4's engine could read but
-not emit (VERDICT r4 item 10). The default scan script is libjpeg's
+The one capability class libjpeg has that the engine could otherwise read
+but not emit. The default scan script is libjpeg's
 standard 10-scan YCbCr script (jcparam.c); every scan's Huffman table is
 built from that scan's own symbol statistics (progressive AC scans need
 EOBn symbols the baseline K.3 tables don't define, so per-scan optimal

@@ -1,4 +1,4 @@
-// Native entropy runtime for the TPU JPEG engine.
+// Native entropy runtime for the JPEG engine.
 //
 // The serial inner loops XLA is wrong for — Huffman bit packing and Huffman
 // scan decoding — implemented as a small C++ library, multithreaded across
@@ -384,7 +384,7 @@ long jt_decode_scan(const uint8_t* data, long dlen, long mcu_count,
 // decode_scan_indexed): one light walk over the scan that destuffs the bytes
 // and records, per block, the bit offset of its first AC code plus its
 // absolute DC value — the device then entropy-decodes every block's AC
-// coefficients in parallel (the nvJPEG-style hybrid split, done TPU-shaped).
+// coefficients in parallel (the nvJPEG-style hybrid split).
 // Roughly 2x cheaper than a full decode: no coefficient stores, no zig-zag
 // writes, amplitude bits skipped rather than EXTENDed (except DC).
 // ---------------------------------------------------------------------------
@@ -569,9 +569,7 @@ long jt_index_scan(const uint8_t* data, long dlen, long mcu_count,
 // as (value, zig-zag position) pairs — leaving the device a single dense
 // gather-free densify + finish program. ~2-3 B per nonzero coefficient cross
 // the host link (vs 128 B/block of dense coefficients), and the device spends
-// no time in a serial symbol chain at all: the measured v5e floor for the
-// per-symbol while_loop kernel was ~164 ms on a 4K stream
-// (tools/tpu_probe7g.py) against ~15 ms for this walk.
+// no time in a serial symbol chain at all.
 // ---------------------------------------------------------------------------
 
 namespace {

@@ -1,3 +1,3 @@
-"""Device-side (JAX/XLA/Pallas) ops for the TPU JPEG engine."""
+"""Device-side (JAX/XLA) ops of the JPEG engine."""
 
 from jpeg_tpu.ops import color, dct, dpcm, quant, subsample, tile, zigzag  # noqa: F401

@@ -1,6 +1,6 @@
 """RGB <-> YCbCr (BT.601 full-range, JFIF) as fusable matmuls.
 
-TPU-native replacement for the reference's per-pixel scalar loop
+Vectorized replacement for the reference's per-pixel scalar loop
 (`src/preprocess.c:155-169`). Fixes the Cb sign bug at `preprocess.c:161`
 (the reference computes 128 - (0.168736 R - 0.331264 G + 0.5 B)). Also unlike
 the reference (`src/preprocess.c:176-196`), the -128 level shift is applied to
@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Full f32 matmul precision: the MXU's default bf16 rounding would perturb
+# Full f32 matmul precision: a default-precision f32 matmul may round its
+# inputs (bf16 passes, or TF32 on a GPU's tensor cores), which would perturb
 # pixel-level color conversion (see ops/dct.py for the same rationale).
 _PRECISION = jax.lax.Precision.HIGHEST
 
@@ -45,7 +46,7 @@ def rgb_to_ycbcr(rgb: jnp.ndarray) -> jnp.ndarray:
     """(..., 3) float/uint8 RGB in [0,255] -> (..., 3) float32 YCbCr in [0,255].
 
     Implemented as a (..., 3) x (3, 3) contraction so XLA fuses it into adjacent
-    elementwise work and can feed the MXU for large images.
+    elementwise work and can feed a matrix unit for large images.
     """
     x = rgb.astype(jnp.float32)
     m = jnp.asarray(RGB_TO_YCBCR.T)
@@ -55,9 +56,8 @@ def rgb_to_ycbcr(rgb: jnp.ndarray) -> jnp.ndarray:
 def rgb_to_ycbcr_planes(rgb: jnp.ndarray):
     """(H, W, 3) RGB in [0,255] -> three (H, W) float32 planes (y, cb, cr).
 
-    Elementwise FMA form of rgb_to_ycbcr: with only 3 output channels the
-    matmul form wastes the MXU (N pads to 128) and measured ~2x slower on a
-    v5e (tools/tpu_probe7.py: 5.9 vs 3.4 ms on 4K); the FMA chain fuses into
+    Elementwise FMA form of rgb_to_ycbcr: with only 3 output channels a
+    matmul wastes most of a matrix unit's width; the FMA chain fuses into
     adjacent elementwise work. Same coefficients; float32 rounding may differ
     from the matmul form in the last ulp.
     """

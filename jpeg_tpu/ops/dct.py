@@ -1,17 +1,17 @@
 """Forward/inverse 8x8 DCT-II as batched matmuls against a fixed basis.
 
-TPU-native replacement for the reference's naive O(64^2)-with-cos()-in-the-loop
+Matmul replacement for the reference's naive O(64^2)-with-cos()-in-the-loop
 per-block DCT (`src/dct.c:36-59`, measured ~97% of its runtime — SURVEY.md §6).
 Here the transform is `D @ X @ D^T` with an 8x8 orthonormal basis precomputed on
 host, so the whole image becomes two dense tensor contractions that XLA tiles
-onto the MXU; there is no per-block code at all. The IDCT is the exact transpose
+onto matrix units; there is no per-block code at all. The IDCT is the exact transpose
 pair (`D^T @ C @ D`) — the decoder stage the reference never wrote
 (`src/headers/jpg_decode.h` is empty).
 
 Two layouts are supported:
   * block layout (..., 8, 8) — einsum over the trailing dims;
   * image layout (H, W) — separable transform with large free dims (H and W) so
-    the MXU contraction runs against wide matrices instead of 8-wide ones.
+    the contraction runs against wide matrices instead of 8-wide ones.
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# The MXU's default f32 matmul path rounds inputs to bf16; JPEG quantization is
-# decided by coefficient values, so the DCT must run at full f32 (HIGHEST uses
-# multi-pass bf16 on TPU — exact to f32 for this range). Cheap: 8-wide contractions.
+# A default-precision f32 matmul may round its inputs (bf16 passes, or TF32 on
+# a GPU's tensor cores); JPEG quantization is decided by coefficient values, so
+# the DCT runs at HIGHEST, full float32 products on every backend.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -89,11 +89,8 @@ def zigzag_dct_matrix() -> np.ndarray:
     (kron(D, D) over a row-major flattened 8x8 block) with the zig-zag
     permutation folded into the row order.
 
-    This is the round-3 hot-path form: ONE MXU contraction replaces the two
-    separable einsums PLUS the zig-zag gather (TPU gathers from small tables
-    serialize — tools/tpu_probe7.py measured the (B, 64) zig-zag gather at
-    ~5 ms for a 4K luma plane, the same as the whole kron matmul including
-    quantization). M is orthogonal (permutation x orthogonal kron), so the
+    The hot-path form: ONE contraction replaces the two separable einsums
+    PLUS the zig-zag gather. M is orthogonal (permutation x orthogonal kron), so the
     inverse transform is M^T — see idct_zigzag_blocks.
     """
     from jpeg_tpu import tables
@@ -105,7 +102,7 @@ def zigzag_dct_matrix() -> np.ndarray:
 
 def fdct_zigzag_blocks(flat_blocks: jnp.ndarray) -> jnp.ndarray:
     """(B, 64) row-major flattened spatial blocks -> (B, 64) zig-zag-ordered
-    DCT coefficients, one HIGHEST-precision MXU contraction."""
+    DCT coefficients, one HIGHEST-precision contraction."""
     m = jnp.asarray(zigzag_dct_matrix())
     return jax.lax.dot_general(
         flat_blocks.astype(jnp.float32), m, (((1,), (1,)), ((), ())),
@@ -128,7 +125,7 @@ def fdct_plane(plane: jnp.ndarray) -> jnp.ndarray:
 
     Output stays in image layout: coefficient (u, v) of block (a, b) lives at
     pixel (8a+u, 8b+v). Both contractions have a free dim of W or H (>=128 for
-    real images), which maps far better onto the 128x128 MXU than 8-wide
+    real images), which maps far better onto matrix units than 8-wide
     per-block matmuls.
     """
     h, w = plane.shape

@@ -2,9 +2,9 @@
 sharded across N>=2 hosts, DC/offset exchange via collectives, single JFIF").
 
 One arbitrarily large image is sharded as horizontal MCU stripes over the
-``mcu`` mesh axis (ICI within a slice; across hosts the same mesh spans DCN
-via jax.distributed.initialize — the code is identical, only mesh construction
-changes). Each stripe:
+``mcu`` mesh axis (the devices of one host, or across hosts the same mesh
+after jax.distributed.initialize — the code is identical, only mesh
+construction changes). Each stripe:
 
   * computes its quantized/zig-zag blocks locally (transform sharded);
   * resolves its DC predictors — with stripe restarts (default) the RSTn

@@ -1,7 +1,7 @@
 """shard_map'ed encode pipeline: batch + MCU-stripe parallelism.
 
 The reference has no parallelism of any kind (SURVEY.md §2: "NONE exist");
-this module supplies the first-class mapping the TPU build owes instead:
+this module supplies the first-class mapping a multi-device build owes:
 
   * ``batch`` axis: independent images, pure data parallelism;
   * ``mcu`` axis: horizontal MCU stripes of each image — the serial seams the

@@ -107,12 +107,9 @@ def test_tree_pack_matches_mcu_and_block_grouping(rng):
 
 
 def test_tree_pack_end_to_end_stream(rng):
-    """Full encoder stream through group="tree" equals the host scan.
-
-    Uses a smooth gradient image: tiger at q75 has an 867-bit MCU that
-    overflows the shared bpm*128-bit MCU budget (both "mcu" and "tree"
-    groupings report ok=False on it and the encoder falls back — that path is
-    covered by test_device_pack_overflow_falls_back_end_to_end)."""
+    """Full encoder stream through group="tree" equals the host scan, on a
+    smooth gradient image (the overflow fallback is covered by
+    test_device_pack_overflow_falls_back_end_to_end)."""
     from jpeg_tpu.models import encoder as E
     from jpeg_tpu.config import Subsampling
     from jpeg_tpu.ops import quant
@@ -129,7 +126,7 @@ def test_tree_pack_end_to_end_stream(rng):
     qc = jnp.asarray(quant.chroma_table(75))
     huff = huffman.standard_tables()
     luts = tuple(jnp.asarray(a) for a in bitpack.luts_from_tables(huff))
-    fn = E._jit_color_packed(Subsampling.YUV420, 0, False, "tree")
+    fn = E._jit_color_packed(Subsampling.YUV420, 0, "tree")
     words, totals, ok = fn(jnp.asarray(img), qy, qc, *luts)
     assert bool(np.asarray(ok).all())
     t = int(np.asarray(totals)[0])
@@ -158,22 +155,22 @@ def test_device_pack_zrl_chains(rng):
 
 
 @pytest.mark.parametrize("restart", [0, 2])
-def test_encode_device_pack_end_to_end(tiger, restart):
+def test_encode_device_pack_end_to_end(photo, restart):
     """encode(device_pack=True) must produce byte-identical files to the host
     path (standard tables)."""
-    a = encode(tiger, quality=80, subsampling="420", restart_interval=restart,
+    a = encode(photo, quality=80, subsampling="420", restart_interval=restart,
                device_pack=True)
-    b = encode(tiger, quality=80, subsampling="420", restart_interval=restart,
+    b = encode(photo, quality=80, subsampling="420", restart_interval=restart,
                device_pack=False)
     assert a == b
-    assert decode(a).shape == tiger.shape
+    assert decode(a).shape == photo.shape
 
 
-def test_device_pack_unaligned_restart_falls_back(tiger):
+def test_device_pack_unaligned_restart_falls_back(photo):
     """n_mcu not divisible by r -> must silently use the host packer."""
-    jpg = encode(tiger, quality=80, subsampling="420", restart_interval=7,
+    jpg = encode(photo, quality=80, subsampling="420", restart_interval=7,
                  device_pack=True)
-    ref = encode(tiger, quality=80, subsampling="420", restart_interval=7,
+    ref = encode(photo, quality=80, subsampling="420", restart_interval=7,
                  device_pack=False)
     assert jpg == ref
 
@@ -195,31 +192,31 @@ def test_bits_per_block_predicts_scan_size(rng):
     assert predicted == int(np.asarray(nbits).sum())
 
 
-def test_device_pack_optimized_tables_matches_host(tiger):
+def test_device_pack_optimized_tables_matches_host(photo):
     """Two-pass device path (device histograms -> optimal tables -> cached
     packed program) must equal the host optimized-tables path byte-for-byte."""
-    a = encode(tiger, quality=80, subsampling="420", optimize_tables=True,
+    a = encode(photo, quality=80, subsampling="420", optimize_tables=True,
                device_pack=True)
-    b = encode(tiger, quality=80, subsampling="420", optimize_tables=True,
+    b = encode(photo, quality=80, subsampling="420", optimize_tables=True,
                device_pack=False)
     assert a == b
-    assert decode(a).shape == tiger.shape
+    assert decode(a).shape == photo.shape
 
 
 @pytest.mark.parametrize("restart", [0, 4])
-def test_gray_device_pack_matches_host(tiger, restart):
-    g = tiger[:, :, 1]
+def test_gray_device_pack_matches_host(photo, restart):
+    g = photo[:, :, 1]
     a = encode(g, quality=80, restart_interval=restart, device_pack=True)
     b = encode(g, quality=80, restart_interval=restart, device_pack=False)
     assert a == b
 
 
 @pytest.mark.parametrize("restart", [0, 4])
-def test_gray_device_pack_optimized_tables_matches_host(tiger, restart):
-    """Gray twin of the color two-pass flow (VERDICT r2 weak item 3): device
+def test_gray_device_pack_optimized_tables_matches_host(photo, restart):
+    """Gray twin of the color two-pass flow: device
     histograms -> per-image optimal tables -> cached packed program, byte-equal
     to the host optimized-tables path."""
-    g = tiger[:, :, 1]
+    g = photo[:, :, 1]
     a = encode(g, quality=80, restart_interval=restart, optimize_tables=True,
                device_pack=True)
     b = encode(g, quality=80, restart_interval=restart, optimize_tables=True,
@@ -228,10 +225,10 @@ def test_gray_device_pack_optimized_tables_matches_host(tiger, restart):
     assert decode(a).shape == g.shape
 
 
-def test_batched_packed_program_matches_single(tiger):
+def test_batched_packed_program_matches_single(photo):
     """The K-image vmapped device program (encoder._jit_color_packed_batch)
     must produce, per image, exactly the single-image program's words/totals
-    (the dispatch-amortization path of VERDICT r2 item 2)."""
+    (the dispatch-amortization path)."""
     import jax
 
     from jpeg_tpu.config import Subsampling
@@ -239,7 +236,7 @@ def test_batched_packed_program_matches_single(tiger):
     from jpeg_tpu.ops import quant, tile
 
     mode = Subsampling.YUV420
-    imgs = np.stack([tiger, tiger[:, :, ::-1], 255 - tiger])
+    imgs = np.stack([photo, photo[:, :, ::-1], 255 - photo])
     imgs = np.asarray(
         tile.pad_to_multiple(jnp.asarray(imgs).transpose(1, 2, 3, 0),
                              mode.mcu_height, mode.mcu_width)
@@ -269,11 +266,11 @@ def test_device_pack_overflow_falls_back_end_to_end(rng):
     assert decode(a).shape == img.shape
 
 
-def test_adaptive_scale_retry_keeps_q95_on_device(tiger):
-    """q95 content exceeds the default per-block cap (tiger peaks at ~423
-    bits/block) but the adaptive block-grouping retry at scale 2 must keep
-    the pack on-device, byte-identical to the host packer (VERDICT r3 weak
-    6)."""
+def test_adaptive_scale_retry_keeps_q95_on_device(photo):
+    """q95 content exceeds the default per-block cap (the photo fixture
+    peaks near 340 bits/block against the 288-bit scale-1 cap) but the
+    block-grouping retry at scale 2 must keep the pack on-device,
+    byte-identical to the host packer."""
     import jax
     from jpeg_tpu.config import Subsampling
     from jpeg_tpu.models import encoder as E
@@ -281,58 +278,57 @@ def test_adaptive_scale_retry_keeps_q95_on_device(tiger):
 
     mode = Subsampling.YUV420
     img = np.asarray(tile.pad_to_multiple(
-        jnp.asarray(tiger), mode.mcu_height, mode.mcu_width))
+        jnp.asarray(photo), mode.mcu_height, mode.mcu_width))
     luts = tuple(jnp.asarray(a)
                  for a in bitpack.luts_from_tables(huffman.standard_tables()))
     qy = jnp.asarray(quant.luma_table(95))
     qc = jnp.asarray(quant.chroma_table(95))
-    ok1 = E._jit_color_packed(mode, 0, False, "tree")(img, qy, qc, *luts)[2]
-    ok2 = E._jit_color_packed(mode, 0, False, "block")(img, qy, qc, *luts)[2]
-    ok3 = E._jit_color_packed(mode, 0, False, "block", 2)(
+    ok1 = E._jit_color_packed(mode, 0, "tree")(img, qy, qc, *luts)[2]
+    ok2 = E._jit_color_packed(mode, 0, "block")(img, qy, qc, *luts)[2]
+    ok3 = E._jit_color_packed(mode, 0, "block", 2)(
         img, qy, qc, *luts)[2]
     assert not bool(np.asarray(ok1).all())  # default budgets overflow...
     assert not bool(np.asarray(ok2).all())
     assert bool(np.asarray(ok3).all())      # ...the scale-2 retry rescues
-    a = encode(tiger, quality=95, subsampling="420", device_pack=True)
-    b = encode(tiger, quality=95, subsampling="420", device_pack=False)
+    a = encode(photo, quality=95, subsampling="420", device_pack=True)
+    b = encode(photo, quality=95, subsampling="420", device_pack=False)
     assert a == b
 
 
-def test_q95_dense_hint_single_dispatch(tiger, monkeypatch):
-    """VERDICT r4 item 6 (one-pass budget selection): encode(quality=95)
-    predicts dense content from the quantizer and dispatches the scale-2
-    tree program FIRST — zero failed scale-1 dispatches. The spy records
-    every packed-program selection the encoder makes."""
+def test_q95_dense_hint_single_dispatch(photo, monkeypatch):
+    """One-pass budget selection: encode(quality=95) predicts dense content
+    from the quantizer and dispatches the scale-2 tree program FIRST — zero
+    failed scale-1 dispatches. The spy records every packed-program
+    selection the encoder makes."""
     from jpeg_tpu.models import encoder as E
 
     calls = []
     orig = E._jit_color_packed.__wrapped__  # un-cached builder
 
-    def spy(mode, r, pallas=False, group="tree", scale=1):
+    def spy(mode, r, group="tree", scale=1):
         calls.append((group, scale))
-        return orig(mode, r, pallas, group, scale)
+        return orig(mode, r, group, scale)
 
     monkeypatch.setattr(E, "_jit_color_packed", spy)
-    a = encode(tiger, quality=95, subsampling="420", device_pack=True)
-    # ONE dispatch, straight to the scale-2 program (tiger q95 peaks at
-    # 1960 bits/MCU < the dense rung's 6*192*2 budget).
+    a = encode(photo, quality=95, subsampling="420", device_pack=True)
+    # ONE dispatch, straight to the scale-2 program (the fixture's q95 MCUs
+    # peak near 1420 bits < the dense rung's 6*192*2 budget).
     assert calls == [("tree", 2)], calls
     calls.clear()
-    encode(tiger, quality=75, subsampling="420", device_pack=True)
-    # Real photographic q75 fits the widened bpm*160-bit scale-1 budget in
-    # one dispatch too (it peaked over the old bpm*128 budget and paid a
-    # doomed dispatch + retry every time).
+    encode(photo, quality=75, subsampling="420", device_pack=True)
+    # Photographic q75 (MCUs peak near 580 bits) fits the bpm*160-bit
+    # scale-1 budget in one dispatch.
     assert calls == [("tree", 1)], calls
-    assert a == encode(tiger, quality=95, subsampling="420",
+    assert a == encode(photo, quality=95, subsampling="420",
                        device_pack=False)
 
 
-def test_encode_batched_matches_per_image(tiger):
+def test_encode_batched_matches_per_image(photo):
     """Public encode_batched == per-image encode() bytes, on both the
     per-image fallback and the forced batched-program path."""
     from jpeg_tpu import encode_batched
 
-    imgs = np.stack([tiger, 255 - tiger])
+    imgs = np.stack([photo, 255 - photo])
     want = [encode(im, quality=80, subsampling="420") for im in imgs]
     outs = encode_batched(imgs, quality=80, subsampling="420")
     outs_dev = encode_batched(imgs, quality=80, subsampling="420",

@@ -39,8 +39,8 @@ def _scan_blocks(data: bytes, entropy: str):
 
 @pytest.mark.parametrize("mode", ["4:4:4", "4:2:2", "4:2:0"])
 @pytest.mark.parametrize("restart", [0, 7])
-def test_device_matches_numpy_scan_layers(tiger, mode, restart):
-    data = encoder.encode(tiger, quality=75, subsampling=mode,
+def test_device_matches_numpy_scan_layers(photo, mode, restart):
+    data = encoder.encode(photo, quality=75, subsampling=mode,
                           restart_interval=restart)
     ref = _scan_blocks(data, "numpy")
     dev = _scan_blocks(data, "device")
@@ -49,25 +49,37 @@ def test_device_matches_numpy_scan_layers(tiger, mode, restart):
 
 
 @pytest.mark.parametrize("mode", ["4:4:4", "4:2:0"])
-def test_decode_entropy_device_pixel_identical(tiger, mode):
-    data = encoder.encode(tiger, quality=85, subsampling=mode,
+def test_decode_entropy_device_pixel_identical(photo, mode):
+    data = encoder.encode(photo, quality=85, subsampling=mode,
                           restart_interval=4)
     np.testing.assert_array_equal(
         decode(data, entropy="device"), decode(data, entropy="numpy")
     )
 
 
-def test_device_grayscale_and_optimized_tables(tiger):
-    data = encoder.encode(tiger[..., 0], quality=70, optimize_tables=True,
+def test_device_grayscale_and_optimized_tables(photo):
+    data = encoder.encode(photo[..., 0], quality=70, optimize_tables=True,
                           restart_interval=6)
     np.testing.assert_array_equal(
         decode(data, entropy="device"), decode(data, entropy="numpy")
     )
 
 
-def test_device_foreign_pil_stream(tiger):
+def test_device_short_tail_segment_optimized_tables(photo):
+    """300 MCUs at restart interval 8 leave a 4-MCU tail segment whose
+    masked MCUs decode zero padding; under optimized tables that padding
+    reads as an out-of-range AC run, which must not flag the clean stream
+    as corrupt."""
+    data = encoder.encode(photo, quality=75, optimize_tables=True,
+                          restart_interval=8)
+    np.testing.assert_array_equal(
+        decode(data, entropy="device"), decode(data, entropy="numpy")
+    )
+
+
+def test_device_foreign_pil_stream(photo):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, format="JPEG", quality=80,
+    Image.fromarray(photo).save(buf, format="JPEG", quality=80,
                                 restart_marker_blocks=8)
     data = buf.getvalue()
     np.testing.assert_array_equal(
@@ -75,17 +87,17 @@ def test_device_foreign_pil_stream(tiger):
     )
 
 
-def test_device_noninterleaved_multiscan(tiger):
+def test_device_noninterleaved_multiscan(photo):
     from jpeg_tpu.models.multiscan import encode_noninterleaved
 
-    data = encode_noninterleaved(tiger, quality=75)
+    data = encode_noninterleaved(photo, quality=75)
     np.testing.assert_array_equal(
         decode(data, entropy="device"), decode(data, entropy="numpy")
     )
 
 
-def test_device_corrupt_stream_flags_error(tiger):
-    data = bytearray(encoder.encode(tiger, quality=75, optimize_tables=True,
+def test_device_corrupt_stream_flags_error(photo):
+    data = bytearray(encoder.encode(photo, quality=75, optimize_tables=True,
                                     restart_interval=8))
     info = jfif.parse_jpeg(bytes(data))
     # Flip bits mid-scan: optimized tables leave unassigned code space, so a
@@ -116,8 +128,8 @@ HYBRID = ["indexed", "sparse"]
 @pytest.mark.parametrize("backend", HYBRID)
 @pytest.mark.parametrize("mode", ["4:4:4", "4:2:2", "4:2:0"])
 @pytest.mark.parametrize("restart", [0, 7])
-def test_hybrid_matches_numpy_scan_layers(tiger, backend, mode, restart):
-    data = encoder.encode(tiger, quality=75, subsampling=mode,
+def test_hybrid_matches_numpy_scan_layers(photo, backend, mode, restart):
+    data = encoder.encode(photo, quality=75, subsampling=mode,
                           restart_interval=restart)
     ref = _scan_blocks(data, "numpy")
     idx = _scan_blocks(data, backend)
@@ -127,8 +139,8 @@ def test_hybrid_matches_numpy_scan_layers(tiger, backend, mode, restart):
 
 @pytest.mark.parametrize("backend", HYBRID)
 @pytest.mark.parametrize("quality", [10, 75, 97])
-def test_hybrid_pixel_identical(tiger, backend, quality):
-    data = encoder.encode(tiger, quality=quality, subsampling="4:2:0",
+def test_hybrid_pixel_identical(photo, backend, quality):
+    data = encoder.encode(photo, quality=quality, subsampling="4:2:0",
                           restart_interval=4)
     np.testing.assert_array_equal(
         decode(data, entropy=backend), decode(data, entropy="numpy")
@@ -136,8 +148,8 @@ def test_hybrid_pixel_identical(tiger, backend, quality):
 
 
 @pytest.mark.parametrize("backend", HYBRID)
-def test_hybrid_grayscale_and_optimized_tables(tiger, backend):
-    data = encoder.encode(tiger[..., 0], quality=70, optimize_tables=True,
+def test_hybrid_grayscale_and_optimized_tables(photo, backend):
+    data = encoder.encode(photo[..., 0], quality=70, optimize_tables=True,
                           restart_interval=6)
     np.testing.assert_array_equal(
         decode(data, entropy=backend), decode(data, entropy="numpy")
@@ -145,9 +157,9 @@ def test_hybrid_grayscale_and_optimized_tables(tiger, backend):
 
 
 @pytest.mark.parametrize("backend", HYBRID)
-def test_hybrid_foreign_pil_stream(tiger, backend):
+def test_hybrid_foreign_pil_stream(photo, backend):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, format="JPEG", quality=80,
+    Image.fromarray(photo).save(buf, format="JPEG", quality=80,
                                 restart_marker_blocks=8)
     data = buf.getvalue()
     np.testing.assert_array_equal(
@@ -156,18 +168,18 @@ def test_hybrid_foreign_pil_stream(tiger, backend):
 
 
 @pytest.mark.parametrize("backend", HYBRID)
-def test_hybrid_noninterleaved_multiscan(tiger, backend):
+def test_hybrid_noninterleaved_multiscan(photo, backend):
     from jpeg_tpu.models.multiscan import encode_noninterleaved
 
-    data = encode_noninterleaved(tiger, quality=75)
+    data = encode_noninterleaved(photo, quality=75)
     np.testing.assert_array_equal(
         decode(data, entropy=backend), decode(data, entropy="numpy")
     )
 
 
 @pytest.mark.parametrize("backend", HYBRID)
-def test_hybrid_corrupt_stream_flags_error(tiger, backend):
-    data = bytearray(encoder.encode(tiger, quality=75, optimize_tables=True,
+def test_hybrid_corrupt_stream_flags_error(photo, backend):
+    data = bytearray(encoder.encode(photo, quality=75, optimize_tables=True,
                                     restart_interval=8))
     info = jfif.parse_jpeg(bytes(data))
     start = bytes(data).find(info.scan_data)
@@ -186,13 +198,13 @@ def test_hybrid_corrupt_stream_flags_error(tiger, backend):
         np.testing.assert_array_equal(a, b)
 
 
-def test_sparse_fused_scaled_and_device_output(tiger):
+def test_sparse_fused_scaled_and_device_output(photo):
     """entropy="sparse" routes interleaved color streams through the fused
     one-program path (densify+reorder+finish in one jit) — it must honor
     scale_denom and device_output and stay bit-identical to numpy."""
     import jax.numpy as jnp
 
-    data = encoder.encode(tiger, quality=80, subsampling="4:2:0",
+    data = encoder.encode(photo, quality=80, subsampling="4:2:0",
                           restart_interval=5)
     for sd in (1, 4):
         np.testing.assert_array_equal(
@@ -203,7 +215,7 @@ def test_sparse_fused_scaled_and_device_output(tiger):
     assert isinstance(out, jnp.ndarray)
     np.testing.assert_array_equal(np.asarray(out), decode(data, entropy="numpy"))
     # Gray fused twin, scaled and unscaled.
-    g = encoder.encode(tiger[..., 1], quality=70, restart_interval=3)
+    g = encoder.encode(photo[..., 1], quality=70, restart_interval=3)
     for sd in (1, 2):
         np.testing.assert_array_equal(
             decode(g, entropy="sparse", scale_denom=sd),
@@ -211,13 +223,13 @@ def test_sparse_fused_scaled_and_device_output(tiger):
         )
 
 
-def test_decode_batched_matches_per_image(tiger):
+def test_decode_batched_matches_per_image(photo):
     """decode_batched: K streams through ONE vmapped fused program ==
     per-image decode, including with per-stream optimized Huffman tables and
     scaled decode."""
     from jpeg_tpu.models.decoder import decode_batched
 
-    imgs = [tiger, tiger[::-1].copy(), 255 - tiger]
+    imgs = [photo, photo[::-1].copy(), 255 - photo]
     datas = [
         encoder.encode(im, quality=80, subsampling="4:2:0",
                        restart_interval=r, optimize_tables=opt)
@@ -240,11 +252,11 @@ def test_decode_batched_matches_per_image(tiger):
 
     with pytest.raises(ValueError):
         decode_batched(datas[:1] + [
-            encoder.encode(tiger, quality=50, subsampling="4:2:0")
+            encoder.encode(photo, quality=50, subsampling="4:2:0")
         ])  # different quant tables
     with pytest.raises(ValueError):
         decode_batched([
-            encoder.encode(tiger, quality=80, subsampling="4:4:4"),
+            encoder.encode(photo, quality=80, subsampling="4:4:4"),
             datas[0],
         ])  # different sampling
 
@@ -277,15 +289,14 @@ def _swap_huffman_ids(data: bytes) -> bytes:
     return bytes(out)
 
 
-def test_decode_batched_rejects_swapped_table_ids(tiger):
+def test_decode_batched_rejects_swapped_table_ids(photo):
     """A stream with Huffman table ids swapped 0<->1 decodes identically on
     its own but must NOT batch with a normal stream: mcu_layout is built once
     from stream 0, so a mismatched id assignment would walk the second stream
-    with the wrong tables (ADVICE r3: silently wrong pixels in the worst
-    case)."""
+    with the wrong tables (silently wrong pixels in the worst case)."""
     from jpeg_tpu.models.decoder import decode_batched
 
-    normal = encoder.encode(tiger, quality=80, subsampling="4:2:0")
+    normal = encoder.encode(photo, quality=80, subsampling="4:2:0")
     swapped = _swap_huffman_ids(normal)
     assert swapped != normal
     np.testing.assert_array_equal(
@@ -295,13 +306,13 @@ def test_decode_batched_rejects_swapped_table_ids(tiger):
         decode_batched([normal, swapped])
 
 
-def test_sparse_scan_payload_contract(tiger):
+def test_sparse_scan_payload_contract(photo):
     """native.sparse_scan's (vals, ks, counts, dc) reassemble into exactly the
     dense blocks the full native decoder produces."""
     from jpeg_tpu.entropy import native
     from jpeg_tpu.models import layout
 
-    data = encoder.encode(tiger, quality=75, subsampling="4:2:0",
+    data = encoder.encode(photo, quality=75, subsampling="4:2:0",
                           restart_interval=9)
     info = jfif.parse_jpeg(data)
     cy, ccb, ccr = info.components
@@ -330,8 +341,8 @@ def test_sparse_scan_payload_contract(tiger):
     np.testing.assert_array_equal(dense, ref)
 
 
-def test_device_rejects_bad_segment_count(tiger):
-    data = encoder.encode(tiger, quality=75, restart_interval=5)
+def test_device_rejects_bad_segment_count(photo):
+    data = encoder.encode(photo, quality=75, restart_interval=5)
     info = jfif.parse_jpeg(data)
     from jpeg_tpu.models import layout
     cy = info.components[0]
@@ -345,13 +356,13 @@ def test_device_rejects_bad_segment_count(tiger):
         )
 
 
-def test_unknown_entropy_backend_rejected(tiger):
-    data = encoder.encode(tiger, quality=75)
+def test_unknown_entropy_backend_rejected(photo):
+    data = encoder.encode(photo, quality=75)
     with pytest.raises(ValueError):
         decode(data, entropy="gpu")
 
 
-def test_sparse_payload_from_blocks_roundtrip(tiger):
+def test_sparse_payload_from_blocks_roundtrip(photo):
     """r5: dense raster coefficient grids -> sparse payload -> densify must
     reproduce the grids exactly (the progressive/host-entropy decode paths
     ride this conversion onto the fused sparse program, turning a ~50 MB
@@ -362,7 +373,7 @@ def test_sparse_payload_from_blocks_roundtrip(tiger):
     from jpeg_tpu.io import jfif
     from jpeg_tpu.models import layout as L
 
-    jpg = encoder.encode(tiger, quality=85, subsampling="4:2:0")
+    jpg = encoder.encode(photo, quality=85, subsampling="4:2:0")
     info = jfif.parse_jpeg(jpg)
     comps = info.components
     mcu_rows = L.ceil_div(info.height, 16)
@@ -388,14 +399,14 @@ def test_sparse_payload_from_blocks_roundtrip(tiger):
         base += len(z)
 
 
-def test_zz_raster_sparse_path_pixels(tiger, monkeypatch):
+def test_zz_raster_sparse_path_pixels(photo, monkeypatch):
     """Force the sparse-upload conversion on CPU: progressive and baseline
     streams of the same image must decode to identical pixels through the
     converted path, and match the dense path exactly (same CPU finish)."""
     from jpeg_tpu.models import decoder as D
     from jpeg_tpu.models.progressive_enc import encode_progressive
 
-    img = tiger[:53, :61]
+    img = photo[:53, :61]
     prog = encode_progressive(img, quality=80, subsampling="420")
     base = encoder.encode(img, quality=80, subsampling="420")
     dense_prog = decode(prog)

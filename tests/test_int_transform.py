@@ -1,10 +1,10 @@
 """Exact fixed-point transform (ops/mcu_conv._mcu_transform_int).
 
-The round-4 TPU default: coefficients must be bit-identical to an int64
+The accelerator default: coefficients must be bit-identical to an int64
 NumPy emulation of the fixed-point math (no float rounding anywhere in the
 value path), agree with the staged f32 transform except at exact rounding
-boundaries, and be invariant under vmap/batching — the property that closes
-the r3 cross-executable byte divergence.
+boundaries, and be invariant under vmap/batching — the property that keeps
+every executable's bytes identical.
 """
 
 import numpy as np
@@ -45,12 +45,11 @@ def _int_transform_numpy(rgb, qy, qc, mode):
     return np.where(acc < 0, -q0, q0).astype(np.int32).reshape(-1, hv + 2, 64)
 
 
-@pytest.mark.parametrize("mode", [Subsampling.YUV444, Subsampling.YUV420,
-                                  Subsampling.YUV422, Subsampling.YUV411])
+@pytest.mark.parametrize("mode", list(Subsampling))
 def test_int_transform_matches_int64_emulation(rng, mode):
-    """The XLA fixed-point program is bit-exact vs pure-int64 host math: the
-    bf16 hi/lo conv with f32 accumulation loses nothing (bounds asserted in
-    mcu_kernel_int)."""
+    """The XLA fixed-point program, run on the CPU device, is bit-exact vs
+    pure-int64 host math for every subsampling: the bf16 hi/lo matmul with
+    f32 accumulation loses nothing (bounds asserted in mcu_kernel_int)."""
     h = mode.mcu_height * 3
     w = mode.mcu_width * 2
     rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
@@ -84,7 +83,7 @@ def test_int_transform_close_to_staged(rng, quality_tables):
 
 def test_int_transform_batched_matches_single(rng):
     """vmap of the fixed-point transform is bit-identical to per-image calls
-    under jit — the invariant the r3 float conv could not give on TPU."""
+    under jit — the invariant a float conv cannot give."""
     mode = Subsampling.YUV420
     imgs = rng.integers(0, 256, (3, 32, 32, 3)).astype(np.uint8)
     qy = jnp.asarray(np.full((8, 8), 17, np.int32))

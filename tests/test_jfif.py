@@ -117,8 +117,8 @@ def test_missing_sos():
 
 def test_comment_roundtrip(rng):
     img = rng.integers(0, 256, size=(16, 16, 3)).astype(np.uint8)
-    jpg = encode(img, comment="tpu-jpeg test comment")
-    assert b"tpu-jpeg test comment" in jpg
+    jpg = encode(img, comment="jpeg engine test comment")
+    assert b"jpeg engine test comment" in jpg
     decode(jpg)  # still decodable
 
 

@@ -1,4 +1,4 @@
-"""Real multi-process distributed run (VERDICT r1 item 5 / SURVEY §4 (d)).
+"""Real multi-process distributed run (SURVEY §4 (d)).
 
 Launches 2 jax.distributed CPU processes (coordinator on localhost, 4 virtual
 devices each) running tests/mp_worker.py, then asserts the multi-process

@@ -78,14 +78,14 @@ def test_decode_multicomponent(rng):
         np.testing.assert_array_equal(x, y)
 
 
-def test_end_to_end_native_vs_numpy(tiger, monkeypatch):
+def test_end_to_end_native_vs_numpy(photo, monkeypatch):
     """Full encode with native on vs off must be byte-identical; decode too."""
-    jpg_native = encode(tiger, quality=80, subsampling="420", restart_interval=4)
+    jpg_native = encode(photo, quality=80, subsampling="420", restart_interval=4)
     out_native = decode(jpg_native)
     monkeypatch.setenv("JPEG_TPU_NATIVE", "0")
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", True)
-    jpg_np = encode(tiger, quality=80, subsampling="420", restart_interval=4)
+    jpg_np = encode(photo, quality=80, subsampling="420", restart_interval=4)
     out_np = decode(jpg_np)
     assert jpg_native == jpg_np
     np.testing.assert_array_equal(out_native, out_np)
@@ -134,7 +134,7 @@ def test_native_finalize_scan_matches_numpy(rng):
         assert got == expect
 
 
-def test_native_pack_payload_matches_numpy(rng, tiger):
+def test_native_pack_payload_matches_numpy(rng, photo):
     """jt_pack_payload is byte-exact vs the NumPy build_payload across Sp/Ep
     bucket shapes, exception-heavy values and DC-diff exceptions."""
     from jpeg_tpu import encode
@@ -143,7 +143,7 @@ def test_native_pack_payload_matches_numpy(rng, tiger):
     from jpeg_tpu.models import layout as L
 
     for q in (75, 95):
-        jpg = encode(tiger, quality=q, subsampling="420", restart_interval=5)
+        jpg = encode(photo, quality=q, subsampling="420", restart_interval=5)
         info = jfif.parse_jpeg(jpg)
         cy = info.components[0]
         n_mcu = L.ceil_div(info.height, 8 * cy.v) * L.ceil_div(

@@ -173,7 +173,7 @@ def test_encode_stream_matches_encode(rng):
 
 
 def test_encode_stream_optimized_tables(rng):
-    """r5 (VERDICT r4 item 9): optimize_tables=True streams per-image
+    """optimize_tables=True streams per-image
     optimal-table encodes byte-identical to encode(optimize_tables=True) —
     the histogram program rides the pipeline, the upload is shared."""
     from jpeg_tpu.parallel.pipeline import encode_stream
@@ -242,7 +242,7 @@ def test_device_packed_batch_matches_host_path(rng):
 def test_device_packed_batch_optimized_tables_matches_host_path(rng):
     """optimize_tables must stay on the device-pack fast path (two device
     passes: psum'd histograms -> K.2 tables -> per-stripe packing) and still
-    be byte-identical to the host-packed path (VERDICT r1 item 7)."""
+    be byte-identical to the host-packed path."""
     imgs = _test_imgs(rng, b=2, h=64, w=48)
     mesh = make_mesh(8, batch_axis=2)
     a = pbatch.encode_batch(imgs, quality=80, subsampling="420", mesh=mesh,
@@ -272,7 +272,7 @@ def test_multihost_mesh_single_process():
 
 @pytest.mark.parametrize("mode,w", [
     ("444", 48), ("420", 48),
-    # VERDICT r2 weak 8: 4:1:1 (x4 horizontal chroma upsample, width-local
+    # 4:1:1 (x4 horizontal chroma upsample, width-local
     # doubling chain) and 4:4:0 (vertical halo) in the sharded finisher too.
     ("411", 64), ("440", 48),
 ])
@@ -299,19 +299,19 @@ def test_decode_batch_rejects_mixed_streams(rng):
         pbatch.decode_batch([a[0], b[1]], mesh=mesh)
 
 
-def test_decode_stream_matches_per_image(tiger):
+def test_decode_stream_matches_per_image(photo):
     """decode_stream yields per-image-identical pixels in input order, with
     heterogeneous geometries/settings in one stream."""
     from jpeg_tpu import decode, encode
     from jpeg_tpu.parallel.pipeline import decode_stream
 
     datas = [
-        encode(tiger, quality=80, subsampling="420"),
-        encode(tiger[:128, :160], quality=60, subsampling="444",
+        encode(photo, quality=80, subsampling="420"),
+        encode(photo[:128, :160], quality=60, subsampling="444",
                restart_interval=3),
-        encode(255 - tiger, quality=90, subsampling="422",
+        encode(255 - photo, quality=90, subsampling="422",
                optimize_tables=True),
-        encode(tiger[..., 0], quality=75),  # grayscale mid-stream
+        encode(photo[..., 0], quality=75),  # grayscale mid-stream
     ]
     outs = list(decode_stream(datas, depth=2))
     assert len(outs) == len(datas)
@@ -322,7 +322,7 @@ def test_decode_stream_matches_per_image(tiger):
         np.testing.assert_array_equal(got, decode(d, scale_denom=2))
 
 
-def test_encode_stream_q95_uses_retry_ladder(tiger, monkeypatch):
+def test_encode_stream_q95_uses_retry_ladder(photo, monkeypatch):
     """The streaming finisher resumes the shared overflow retry ladder:
     q95 frames (which overflow the default tree budget) come out via the
     scale-2 device program, NOT the host fallback (host bytes are identical
@@ -333,27 +333,27 @@ def test_encode_stream_q95_uses_retry_ladder(tiger, monkeypatch):
     from jpeg_tpu.parallel.pipeline import encode_stream
 
     want = [encode(im, quality=95, subsampling="420")
-            for im in (tiger, 255 - tiger)]
+            for im in (photo, 255 - photo)]
     calls = []
     orig = E._encode_color
     monkeypatch.setattr(E, "_encode_color",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
-    outs = list(encode_stream([tiger, 255 - tiger], quality=95,
+    outs = list(encode_stream([photo, 255 - photo], quality=95,
                               subsampling="420", device_pack=True))
     assert outs == want
     assert not calls, "finisher fell back to host instead of the ladder"
 
 
-def test_decode_stream_propagates_errors(tiger):
+def test_decode_stream_propagates_errors(photo):
     """A corrupt stream mid-batch raises at its yield position (futures
     resolve in input order), after earlier results were already yielded."""
     from jpeg_tpu import encode
     from jpeg_tpu.io import jfif
     from jpeg_tpu.parallel.pipeline import decode_stream
 
-    good = encode(tiger, quality=75, subsampling="420")
+    good = encode(photo, quality=75, subsampling="420")
     it = decode_stream([good, b"not a jpeg", good], depth=1)
     first = next(it)
-    assert first.shape == tiger.shape
+    assert first.shape == photo.shape
     with pytest.raises(jfif.JpegFormatError):
         list(it)

@@ -27,18 +27,18 @@ def _pil_progressive(img, **kw):
 
 @pytest.mark.parametrize("sub", [0, 1, 2])
 @pytest.mark.parametrize("quality", [35, 75, 95])
-def test_progressive_color_matches_pil(tiger, sub, quality):
-    jpg = _pil_progressive(tiger, quality=quality, subsampling=sub)
+def test_progressive_color_matches_pil(photo, sub, quality):
+    jpg = _pil_progressive(photo, quality=quality, subsampling=sub)
     info = jfif.parse_jpeg(jpg)
     assert info.progressive and len(info.scans) > 3
     ours = decode(jpg)
     pil = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB"))
-    assert ours.shape == pil.shape == tiger.shape
+    assert ours.shape == pil.shape == photo.shape
     assert psnr(ours, pil) > 45.0, psnr(ours, pil)
 
 
-def test_progressive_grayscale(tiger):
-    jpg = _pil_progressive(tiger[..., 1], quality=80)
+def test_progressive_grayscale(photo):
+    jpg = _pil_progressive(photo[..., 1], quality=80)
     ours = decode(jpg)
     pil = np.asarray(Image.open(io.BytesIO(jpg)).convert("L"))
     assert ours.shape == pil.shape
@@ -58,14 +58,14 @@ def test_progressive_odd_sizes(rng, shape):
 
 
 @pytest.mark.parametrize("sub", [0, 2])
-def test_native_backend_bit_identical(tiger, sub):
+def test_native_backend_bit_identical(photo, sub):
     """The C++ scan walker and the Python BitReader produce identical grids
     on every scan kind of libjpeg's standard progressive script."""
     from jpeg_tpu.entropy import native, progressive_np
 
     if not native.available():
         pytest.skip("native runtime unavailable")
-    jpg = _pil_progressive(tiger, quality=80, subsampling=sub)
+    jpg = _pil_progressive(photo, quality=80, subsampling=sub)
     info = jfif.parse_jpeg(jpg)
     g_nat = progressive_np.decode_progressive(info, backend="native")
     g_np = progressive_np.decode_progressive(info, backend="numpy")
@@ -73,14 +73,14 @@ def test_native_backend_bit_identical(tiger, sub):
         np.testing.assert_array_equal(a, b)
 
 
-def test_native_backend_restart_markers(tiger):
+def test_native_backend_restart_markers(photo):
     """Progressive stream with RSTn in every scan: segment split, predictor
     and EOB-run resets, threaded segment decode — still bit-identical and
     PIL-exact."""
     from jpeg_tpu.entropy import native, progressive_np
 
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(
+    Image.fromarray(photo).save(
         buf, "JPEG", progressive=True, quality=80, restart_marker_rows=1
     )
     jpg = buf.getvalue()
@@ -96,20 +96,20 @@ def test_native_backend_restart_markers(tiger):
     assert psnr(ours, pil) > 45.0
 
 
-def test_progressive_grayscale_native_identity(tiger):
+def test_progressive_grayscale_native_identity(photo):
     from jpeg_tpu.entropy import native, progressive_np
 
     if not native.available():
         pytest.skip("native runtime unavailable")
-    jpg = _pil_progressive(tiger[..., 0], quality=70)
+    jpg = _pil_progressive(photo[..., 0], quality=70)
     info = jfif.parse_jpeg(jpg)
     g_nat = progressive_np.decode_progressive(info, backend="native")
     g_np = progressive_np.decode_progressive(info, backend="numpy")
     np.testing.assert_array_equal(g_nat[0], g_np[0])
 
 
-def test_progressive_truncated_raises(tiger):
-    jpg = _pil_progressive(tiger, quality=75)
+def test_progressive_truncated_raises(photo):
+    jpg = _pil_progressive(photo, quality=75)
     for cut in (len(jpg) // 3, 2 * len(jpg) // 3):
         try:
             decode(jpg[:cut])
@@ -117,8 +117,8 @@ def test_progressive_truncated_raises(tiger):
             pass  # must raise or return cleanly, never crash/hang
 
 
-def test_progressive_info_fields(tiger):
-    jpg = _pil_progressive(tiger, quality=75)
+def test_progressive_info_fields(photo):
+    jpg = _pil_progressive(photo, quality=75)
     info = jfif.parse_jpeg(jpg)
     # First scan is DC-first over all components; later scans are per-band.
     s0 = info.scans[0]

@@ -1,6 +1,6 @@
 """Progressive (SOF2) encode: our writer, decoded by our reader AND PIL.
 
-VERDICT r4 item 10. A progressive stream is a lossless re-coding of the
+A progressive stream is a lossless re-coding of the
 same quantized coefficients, so the exactness oracle is two-sided:
   * our decoder must produce IDENTICAL pixels for the progressive and
     baseline streams of the same image (same coefficients, same finish);
@@ -39,61 +39,61 @@ def _check(img, prog: bytes, base: bytes):
 
 
 @pytest.mark.parametrize("sub", ["444", "422", "420"])
-def test_progressive_color_roundtrip(tiger, sub):
-    img = tiger[:80, :112]
+def test_progressive_color_roundtrip(photo, sub):
+    img = photo[:80, :112]
     _check(img, encode_progressive(img, quality=80, subsampling=sub),
            encode(img, quality=80, subsampling=sub))
 
 
-def test_progressive_odd_geometry(tiger):
-    img = tiger[:53, :61]
+def test_progressive_odd_geometry(photo):
+    img = photo[:53, :61]
     _check(img, encode_progressive(img, quality=85, subsampling="420"),
            encode(img, quality=85, subsampling="420"))
 
 
 @pytest.mark.parametrize("shape", [(42, 52), (16, 52), (42, 16), (9, 9)])
-def test_progressive_mcu_padding_geometry(tiger, shape):
+def test_progressive_mcu_padding_geometry(photo, shape):
     """Non-interleaved scans code only the component's ceil(size/8) block
     raster (spec A.2.2) — NOT the MCU-padded grid. A width that pads to an
     extra luma block column (e.g. 52 -> 64 at 4:2:0) desyncs every decoder
     if the padding blocks are emitted; fuzz found it, this pins it."""
-    img = np.ascontiguousarray(tiger[: shape[0], : shape[1]])
+    img = np.ascontiguousarray(photo[: shape[0], : shape[1]])
     _check(img, encode_progressive(img, quality=25, subsampling="420"),
            encode(img, quality=25, subsampling="420"))
 
 
-def test_progressive_fuzz_geometry_quality(tiger):
+def test_progressive_fuzz_geometry_quality(photo):
     rng = np.random.default_rng(7)
     for _ in range(8):
         h = int(rng.integers(8, 70))
         w = int(rng.integers(8, 70))
         q = int(rng.choice([1, 25, 75, 95]))
         sub = str(rng.choice(["444", "422", "420"]))
-        img = np.ascontiguousarray(tiger[:h, :w])
+        img = np.ascontiguousarray(photo[:h, :w])
         _check(img, encode_progressive(img, quality=q, subsampling=sub),
                encode(img, quality=q, subsampling=sub))
 
 
-def test_progressive_gray(tiger):
-    img = tiger[:64, :64, 1]
+def test_progressive_gray(photo):
+    img = photo[:64, :64, 1]
     _check(img, encode_progressive(img, quality=75), encode(img, 75))
 
 
 @pytest.mark.parametrize("quality", [1, 50, 95])
-def test_progressive_quality_extremes(tiger, quality):
-    img = tiger[:48, :64]
+def test_progressive_quality_extremes(photo, quality):
+    img = photo[:48, :64]
     _check(img, encode_progressive(img, quality=quality, subsampling="420"),
            encode(img, quality, subsampling="420"))
 
 
-def test_progressive_full_image(tiger):
-    _check(tiger, encode_progressive(tiger, quality=75, subsampling="420"),
-           encode(tiger, quality=75, subsampling="420"))
+def test_progressive_full_image(photo):
+    _check(photo, encode_progressive(photo, quality=75, subsampling="420"),
+           encode(photo, quality=75, subsampling="420"))
 
 
-def test_progressive_custom_script(tiger):
+def test_progressive_custom_script(photo):
     # A script without successive approximation: DC then full AC bands.
-    img = tiger[:64, :64]
+    img = photo[:64, :64]
     script = (
         ((0, 1, 2), 0, 0, 0, 0),
         ((0,), 1, 63, 0, 0),
@@ -106,15 +106,15 @@ def test_progressive_custom_script(tiger):
            encode(img, 80, subsampling="444"))
 
 
-def test_progressive_invalid_scripts(tiger):
-    img = tiger[:32, :32]
+def test_progressive_invalid_scripts(photo):
+    img = photo[:32, :32]
     with pytest.raises(ValueError):
         encode_progressive(img, scans=(((0, 1), 1, 63, 0, 0),))  # multi-comp AC
     with pytest.raises(ValueError):
         encode_progressive(img, scans=(((0,), 0, 5, 0, 0),))  # DC with Se>0
 
 
-def test_cli_progressive_encode(tmp_path, tiger):
+def test_cli_progressive_encode(tmp_path, photo):
     import os
     import subprocess
     import sys
@@ -122,7 +122,7 @@ def test_cli_progressive_encode(tmp_path, tiger):
     from jpeg_tpu.io import bmp as bmp_io
 
     src = tmp_path / "t.bmp"
-    src.write_bytes(bmp_io.encode_bmp(tiger[:48, :64]))
+    src.write_bytes(bmp_io.encode_bmp(photo[:48, :64]))
     out = tmp_path / "t.jpg"
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), JAX_PLATFORMS="cpu")
@@ -136,13 +136,13 @@ def test_cli_progressive_encode(tmp_path, tiger):
     data = out.read_bytes()
     assert b"\xff\xc2" in data[:200]
     np.testing.assert_array_equal(
-        _pil(data), _pil(encode(tiger[:48, :64], 80, subsampling="420")))
+        _pil(data), _pil(encode(photo[:48, :64], 80, subsampling="420")))
 
 
-def test_progressive_size_sane(tiger):
+def test_progressive_size_sane(photo):
     # Per-scan optimal tables generally compress at least comparably to
     # baseline with standard tables.
-    img = tiger[:160, :240]
+    img = photo[:160, :240]
     prog = encode_progressive(img, quality=75, subsampling="420")
     base = encode(img, quality=75, subsampling="420")
     assert len(prog) < int(len(base) * 1.25)

@@ -27,36 +27,36 @@ def _pil_decode(jpg: bytes) -> np.ndarray:
 
 @pytest.mark.parametrize("mode", ["444", "422", "420"])
 @pytest.mark.parametrize("quality", [25, 50, 75, 95])
-def test_encode_quality_sweep_pil(tiger, mode, quality):
-    jpg = encode(tiger, quality=quality, subsampling=mode)
+def test_encode_quality_sweep_pil(photo, mode, quality):
+    jpg = encode(photo, quality=quality, subsampling=mode)
     out = _pil_decode(jpg)
-    assert out.shape == tiger.shape
+    assert out.shape == photo.shape
     floor = {25: 24.0, 50: 27.0, 75: 29.0, 95: 33.0}[quality]
-    assert psnr(out, tiger) > floor
+    assert psnr(out, photo) > floor
 
 
-def test_quality_monotone_psnr(tiger):
-    values = [psnr(_pil_decode(encode(tiger, quality=q, subsampling="420")), tiger)
+def test_quality_monotone_psnr(photo):
+    values = [psnr(_pil_decode(encode(photo, quality=q, subsampling="420")), photo)
               for q in (25, 50, 75, 95)]
     assert values == sorted(values)
 
 
-def test_size_decreases_with_subsampling(tiger):
-    sizes = [len(encode(tiger, quality=75, subsampling=m)) for m in ("444", "422", "420")]
+def test_size_decreases_with_subsampling(photo):
+    sizes = [len(encode(photo, quality=75, subsampling=m)) for m in ("444", "422", "420")]
     assert sizes[0] > sizes[1] > sizes[2]
 
 
 @pytest.mark.parametrize("mode", ["444", "422", "420"])
-def test_restart_interval_pil(tiger, mode):
-    base = _pil_decode(encode(tiger, quality=75, subsampling=mode))
+def test_restart_interval_pil(photo, mode):
+    base = _pil_decode(encode(photo, quality=75, subsampling=mode))
     for r in (1, 3, 8):
-        jpg = encode(tiger, quality=75, subsampling=mode, restart_interval=r)
+        jpg = encode(photo, quality=75, subsampling=mode, restart_interval=r)
         np.testing.assert_array_equal(_pil_decode(jpg), base)
 
 
-def test_optimized_tables_same_pixels_smaller_file(tiger):
-    a = encode(tiger, quality=85, subsampling="420")
-    b = encode(tiger, quality=85, subsampling="420", optimize_tables=True)
+def test_optimized_tables_same_pixels_smaller_file(photo):
+    a = encode(photo, quality=85, subsampling="420")
+    b = encode(photo, quality=85, subsampling="420", optimize_tables=True)
     assert len(b) < len(a)
     np.testing.assert_array_equal(_pil_decode(a), _pil_decode(b))
 
@@ -89,15 +89,15 @@ def test_odd_sizes(shape):
             assert psnr(ours, rgb) > 25.0
 
 
-def test_cam_bmp_config1(cam):
+def test_cam_bmp_config1(photo_square):
     """BASELINE.json config 1: encode a small reference BMP at q=90, 4:4:4."""
-    jpg = encode(cam, quality=90, subsampling="444")
+    jpg = encode(photo_square, quality=90, subsampling="444")
     out = _pil_decode(jpg)
-    assert psnr(out, cam) > 30.0
+    assert psnr(out, photo_square) > 30.0
 
 
-def test_grayscale(tiger):
-    g = tiger[:, :, 1]
+def test_grayscale(photo):
+    g = photo[:, :, 1]
     jpg = encode(g, quality=85)
     pil = np.asarray(Image.open(io.BytesIO(jpg)).convert("L"))
     assert psnr(pil, g) > 30.0
@@ -112,8 +112,8 @@ def test_grayscale(tiger):
 
 
 @pytest.mark.parametrize("mode", ["444", "422", "420"])
-def test_our_decoder_matches_pil_on_our_streams(tiger, mode):
-    jpg = encode(tiger, quality=75, subsampling=mode, restart_interval=2)
+def test_our_decoder_matches_pil_on_our_streams(photo, mode):
+    jpg = encode(photo, quality=75, subsampling=mode, restart_interval=2)
     ours = decode(jpg)
     pil = _pil_decode(jpg)
     # Same spec-conformant stream; differences limited to IDCT rounding and
@@ -122,9 +122,9 @@ def test_our_decoder_matches_pil_on_our_streams(tiger, mode):
 
 
 @pytest.mark.parametrize("pil_mode", ["4:4:4", "4:2:2", "4:2:0"])
-def test_decode_foreign_pil_jpeg(tiger, pil_mode):
+def test_decode_foreign_pil_jpeg(photo, pil_mode):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", quality=80, subsampling=pil_mode)
+    Image.fromarray(photo).save(buf, "JPEG", quality=80, subsampling=pil_mode)
     jpg = buf.getvalue()
     ours = decode(jpg)
     pil = _pil_decode(jpg)
@@ -132,29 +132,29 @@ def test_decode_foreign_pil_jpeg(tiger, pil_mode):
     assert psnr(ours, pil) > 40.0
 
 
-def test_decode_foreign_progressive(tiger):
+def test_decode_foreign_progressive(photo):
     """Progressive (SOF2) streams decode via the Annex-G scan merger
     (entropy/progressive_np.py) and agree with PIL."""
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", quality=75, progressive=True)
+    Image.fromarray(photo).save(buf, "JPEG", quality=75, progressive=True)
     ours = decode(buf.getvalue())
     pil = np.asarray(Image.open(buf).convert("RGB"))
     assert ours.shape == pil.shape
     assert psnr(ours, pil) > 45.0
 
 
-def test_decode_foreign_optimized_tables(tiger):
+def test_decode_foreign_optimized_tables(photo):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", quality=75, optimize=True,
+    Image.fromarray(photo).save(buf, "JPEG", quality=75, optimize=True,
                                 subsampling="4:2:0")
     ours = decode(buf.getvalue())
     pil = _pil_decode(buf.getvalue())
     assert psnr(ours, pil) > 30.0
 
 
-def test_decode_foreign_restart_markers(tiger):
+def test_decode_foreign_restart_markers(photo):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", quality=75, restart_marker_blocks=4)
+    Image.fromarray(photo).save(buf, "JPEG", quality=75, restart_marker_blocks=4)
     data = buf.getvalue()
     from jpeg_tpu.io import jfif
 
@@ -171,59 +171,59 @@ def test_decode_foreign_restart_markers(tiger):
 
 
 @pytest.mark.parametrize("mode", ["444", "422", "420"])
-def test_self_roundtrip(tiger, mode):
-    jpg = encode(tiger, quality=90, subsampling=mode)
+def test_self_roundtrip(photo, mode):
+    jpg = encode(photo, quality=90, subsampling=mode)
     out = decode(jpg)
     floor = {"444": 33.0, "422": 31.0, "420": 30.0}[mode]
-    assert psnr(out, tiger) > floor
+    assert psnr(out, photo) > floor
 
 
-def test_reencode_stability(tiger):
+def test_reencode_stability(photo):
     """Encode(decode(encode(x))) should not collapse (idempotence-ish)."""
-    j1 = encode(tiger, quality=90, subsampling="444")
+    j1 = encode(photo, quality=90, subsampling="444")
     d1 = decode(j1)
     j2 = encode(d1, quality=90, subsampling="444")
     d2 = decode(j2)
     assert psnr(d2, d1) > 40.0
 
 
-def test_custom_quant_tables(tiger):
+def test_custom_quant_tables(photo):
     """User-supplied quantization tables flow through encode and the DQT."""
     from jpeg_tpu.io import jfif
 
     qy = np.full((8, 8), 20, dtype=np.int32)
     qc = np.full((8, 8), 40, dtype=np.int32)
-    jpg = encode(tiger, subsampling="444", quant_tables=(qy, qc))
+    jpg = encode(photo, subsampling="444", quant_tables=(qy, qc))
     info = jfif.parse_jpeg(jpg)
     np.testing.assert_array_equal(info.qtables[0], qy)
     np.testing.assert_array_equal(info.qtables[1], qc)
     out = _pil_decode(jpg)
-    assert psnr(out, tiger) > 28.0
+    assert psnr(out, photo) > 28.0
     ours = decode(jpg)
     assert psnr(ours, out) > 40.0
 
 
-def test_custom_quant_tables_gray(tiger):
+def test_custom_quant_tables_gray(photo):
     qy = np.full((8, 8), 16, dtype=np.int32)
-    jpg = encode(tiger[:, :, 0], quant_tables=(qy, qy))
+    jpg = encode(photo[:, :, 0], quant_tables=(qy, qy))
     from jpeg_tpu.io import jfif
     np.testing.assert_array_equal(jfif.parse_jpeg(jpg).qtables[0], qy)
 
 
-def test_float_input_accepted(tiger):
-    as_float = tiger.astype(np.float64) + 0.3
+def test_float_input_accepted(photo):
+    as_float = photo.astype(np.float64) + 0.3
     a = encode(as_float, quality=80)
-    b = encode(tiger, quality=80)
+    b = encode(photo, quality=80)
     assert a == b  # rounds back to the same uint8 image
 
 
-def test_decode_411_stream(tiger):
+def test_decode_411_stream(photo):
     """4:1:1 luma sampling (h=4, v=1), produced by PIL if supported."""
     import io as _io
     from PIL import Image as _Image
     buf = _io.BytesIO()
     try:
-        _Image.fromarray(tiger).save(buf, "JPEG", quality=80,
+        _Image.fromarray(photo).save(buf, "JPEG", quality=80,
                                      subsampling="4:1:1")
     except (ValueError, OSError):
         pytest.skip("PIL build lacks 4:1:1")
@@ -259,7 +259,7 @@ def test_jit_disabled_golden_run(rng):
     assert compiled == eager
 
 
-def test_encode_deterministic(tiger):
-    a = encode(tiger, quality=75, subsampling="420")
-    b = encode(tiger, quality=75, subsampling="420")
+def test_encode_deterministic(photo):
+    a = encode(photo, quality=75, subsampling="420")
+    b = encode(photo, quality=75, subsampling="420")
     assert a == b

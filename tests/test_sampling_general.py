@@ -103,21 +103,21 @@ def test_exotic_sampling_backend_identity(rng, comps_hv):
 
 @pytest.mark.parametrize("mode", ["411", "440"])
 @pytest.mark.parametrize("optimize", [False, True])
-def test_encode_411_440(tiger, mode, optimize):
+def test_encode_411_440(photo, mode, optimize):
     """Encoder-side 4:1:1 / 4:4:0 (beyond the reference's 3-mode contract):
     PIL must decode our streams, and our decoder must agree with PIL."""
     from jpeg_tpu.models.encoder import encode
 
-    jpg = encode(tiger, quality=85, subsampling=mode, restart_interval=4,
+    jpg = encode(photo, quality=85, subsampling=mode, restart_interval=4,
                  optimize_tables=optimize)
     pil = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB"))
     ours = decode(jpg)
-    assert ours.shape == pil.shape == tiger.shape
+    assert ours.shape == pil.shape == photo.shape
     # 4x chroma upsampling filters differ more than 2x ones (our chained
     # triangular vs libjpeg's replication for h4): agreement is ~39 dB on
     # 4:1:1 and ~45+ dB on 4:4:0.
     assert psnr(ours, pil) > 36.0, psnr(ours, pil)
-    assert psnr(ours, tiger) > 28.0
+    assert psnr(ours, photo) > 28.0
     np.testing.assert_array_equal(ours, decode(jpg, entropy="numpy"))
 
 

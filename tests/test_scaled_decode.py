@@ -26,11 +26,11 @@ def _pil_draft(jpg, mode, w, h, denom):
 
 @pytest.mark.parametrize("denom", [2, 4, 8])
 @pytest.mark.parametrize("sub", [0, 2])
-def test_color_matches_pil_draft(tiger, denom, sub):
+def test_color_matches_pil_draft(photo, denom, sub):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", quality=85, subsampling=sub)
+    Image.fromarray(photo).save(buf, "JPEG", quality=85, subsampling=sub)
     jpg = buf.getvalue()
-    h, w = tiger.shape[:2]
+    h, w = photo.shape[:2]
     ours = decode(jpg, scale_denom=denom)
     pil = _pil_draft(jpg, "RGB", w, h, denom)
     assert ours.shape == pil.shape == (-(-h // denom), -(-w // denom), 3)
@@ -38,11 +38,11 @@ def test_color_matches_pil_draft(tiger, denom, sub):
 
 
 @pytest.mark.parametrize("denom", [2, 4, 8])
-def test_gray_matches_pil_draft(tiger, denom):
+def test_gray_matches_pil_draft(photo, denom):
     buf = io.BytesIO()
-    Image.fromarray(tiger[..., 1]).save(buf, "JPEG", quality=85)
+    Image.fromarray(photo[..., 1]).save(buf, "JPEG", quality=85)
     jpg = buf.getvalue()
-    h, w = tiger.shape[:2]
+    h, w = photo.shape[:2]
     ours = decode(jpg, scale_denom=denom)
     pil = _pil_draft(jpg, "L", w, h, denom)
     assert ours.shape == pil.shape
@@ -60,19 +60,19 @@ def test_own_stream_and_odd_sizes(rng):
     assert psnr(out[:4, :6], box) > 30.0
 
 
-def test_progressive_scaled(tiger):
+def test_progressive_scaled(photo):
     buf = io.BytesIO()
-    Image.fromarray(tiger).save(buf, "JPEG", progressive=True, quality=85)
+    Image.fromarray(photo).save(buf, "JPEG", progressive=True, quality=85)
     jpg = buf.getvalue()
-    h, w = tiger.shape[:2]
+    h, w = photo.shape[:2]
     ours = decode(jpg, scale_denom=4)
     pil = _pil_draft(jpg, "RGB", w, h, 4)
     assert ours.shape == pil.shape
     assert psnr(ours, pil) > 30.0
 
 
-def test_scaled_validation(tiger, rng):
-    jpg = encode(tiger, quality=80)
+def test_scaled_validation(photo, rng):
+    jpg = encode(photo, quality=80)
     with pytest.raises(ValueError):
         decode(jpg, scale_denom=3)
     a = rng.integers(0, 256, (16, 16, 4)).astype(np.uint8)
@@ -82,8 +82,8 @@ def test_scaled_validation(tiger, rng):
         decode(buf.getvalue(), scale_denom=2)
 
 
-def test_scaled_device_output(tiger):
-    jpg = encode(tiger, quality=80, subsampling="420")
+def test_scaled_device_output(photo):
+    jpg = encode(photo, quality=80, subsampling="420")
     out = decode(jpg, scale_denom=4, device_output=True)
     assert not isinstance(out, np.ndarray)
     assert np.asarray(out).shape == (60, 80, 3)
